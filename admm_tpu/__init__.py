@@ -1,15 +1,15 @@
-"""admm_tpu — a TPU-native operator-splitting (ADMM) statistical framework.
+"""admm_tpu — an accelerator operator-splitting (ADMM) statistical framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 R/C++ ADMM package (Lasso, Elastic Net, LAD, Basis Pursuit, Dantzig
 selector; serial FADMM engines plus consensus parallel ADMM), designed
-TPU-first:
+for an accelerator (the GPU):
 
 * pure-functional solver engines over immutable state pytrees, iterated
   with ``lax.while_loop`` inside ``jit``;
 * whole lambda paths (warm starts included) as a single compiled XLA
   program via ``lax.scan``;
-* factorization-backed x-updates turned into MXU matvecs (one-time SPD
+* factorization-backed x-updates turned into matvecs (one-time SPD
   inverses instead of per-iteration triangular solves);
 * Spectra's Lanczos largest-eigenvalue estimates replaced by on-device
   power iteration;

@@ -12,7 +12,7 @@ Python::
 
 Validation semantics (error conditions, defaults, shape requirements)
 follow the reference R layer line by line; the compute underneath is the
-TPU-native JAX path-solver stack in :mod:`admm_tpu.models` and
+JAX path-solver stack in :mod:`admm_tpu.models` and
 :mod:`admm_tpu.parallel`.
 """
 from __future__ import annotations
@@ -185,7 +185,7 @@ class ADMMLasso:
                 penalty_factor=None, lower_limits=None,
                 upper_limits=None, **kw):
         """(reference: R/30_admm_lasso.R:72-96).  ``penalty_factor``
-        (TPU extension — glmnet's ``penalty.factor``): per-coefficient
+        (extension — glmnet's ``penalty.factor``): per-coefficient
         nonnegative penalty multipliers; 0 = unpenalized.
         ``lower_limits``/``upper_limits`` (glmnet's coefficient box;
         e.g. ``lower_limits=0`` = the nonnegative lasso)
@@ -225,8 +225,8 @@ class ADMMLasso:
              trace=False, **kw):
         """(reference: R/30_admm_lasso.R:115-133).
 
-        ``path_mode`` (TPU extension): "batch" (default) solves all
-        lambdas simultaneously as MXU lanes; "scan" solves them
+        ``path_mode`` (extension): "batch" (default) solves all
+        lambdas simultaneously as batched lanes; "scan" solves them
         sequentially with warm starts — the reference's own protocol,
         whose per-lambda ``niter`` matches the reference's counters;
         "activeset" (wide regime only) is the reference's 4^k-1
@@ -235,7 +235,7 @@ class ADMMLasso:
         large p (DESIGN.md).  All modes agree on the solutions to
         solver tolerance.
 
-        ``trace`` (TPU extension): record the per-iteration
+        ``trace`` (extension): record the per-iteration
         (eps_pri, r_pri, eps_dua, r_dua, rho) on the fit result —
         the reference's residual printers as arrays
         (reference: src/ADMMBase.h:111-146).  ``True`` records the
@@ -402,7 +402,7 @@ def _f64_class_eps() -> float:
     The reference runs these in DOUBLE precision with eps 1e-4
     (reference: src/LAD.cpp:16, src/BP.cpp:20, R/10_admm_bp.R:38-41) —
     a tolerance calibrated to f64 solution quality.  On f32 backends
-    (TPU) the f32 solvers tighten the default to 2e-5, which matches or
+    the f32 solvers tighten the default to 2e-5, which matches or
     beats the reference's published coefficient accuracy (measured
     sweep: DESIGN.md "f64-class accuracy").  Under x64 the reference
     default applies literally.
@@ -468,7 +468,7 @@ class ADMMBP:
              eps_rel: Optional[float] = None,
              rho: Optional[float] = None, trace=False, **kw):
         """(reference: R/10_admm_bp.R:80-97).  ``trace`` as in
-        :meth:`ADMMLasso.opts` (TPU extension); eps defaults are
+        :meth:`ADMMLasso.opts` (extension); eps defaults are
         precision-aware and resolved at fit time (see _f64_class_eps);
         rho=None keeps each solver's measured default (DESIGN.md)."""
         if maxit <= 0:

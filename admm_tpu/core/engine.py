@@ -3,7 +3,7 @@
 The reference implements two abstract C++ engines as template base classes
 with virtual-method hooks (reference: src/ADMMBase.h:13-221 for vanilla
 ADMM with adaptive rho, src/FADMMBase.h:17-270 for the Goldstein et al.
-2014 accelerated variant with restart).  The TPU-native design replaces
+2014 accelerated variant with restart).  The design replaces
 the class hierarchy with:
 
   * an immutable solver state pytree (:class:`ADMMState`),
@@ -74,7 +74,7 @@ class ADMMState(NamedTuple):
 class ProblemOps(NamedTuple):
     """Pure-function hooks describing one ADMM model.
 
-    The TPU equivalents of the virtual methods of ``ADMMBase`` /
+    The equivalents of the virtual methods of ``ADMMBase`` /
     ``FADMMBase`` (reference: src/ADMMBase.h:35-47).  Each callable takes
     the current :class:`ADMMState` (plus the freshly computed iterates
     where noted) and returns arrays; all must be jit-traceable.
@@ -281,14 +281,14 @@ def make_batched_solver(solve):
 
     The reference solves the lambda path sequentially with warm starts
     (reference: src/Lasso.cpp:97-124) because on CPU each solve is a
-    chain of BLAS-2 calls.  On TPU there is a second, MXU-shaped option:
+    chain of BLAS-2 calls.  On an accelerator there is a second option:
     stack all lambdas as a leading lane axis and run ONE while_loop whose
     body is the single-lambda engine body ``vmap``-ed over lanes — the
     per-iteration p x p matvec becomes a (k, p) x (p, p) matmul with k
     times the arithmetic intensity, and the loop runs until every lane
     has converged (converged lanes are frozen, so their ``it`` is the
     per-lambda iteration count).  Cold starts need more iterations per
-    lambda than warm starts, but the MXU eats the extra lanes for free.
+    lambda than warm starts, but the matmul absorbs the extra lanes.
 
     Works for any engine built by :func:`make_admm_solver` /
     :func:`make_fadmm_solver` whose ProblemOps are vmappable.

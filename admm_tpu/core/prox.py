@@ -1,12 +1,12 @@
 """Proximal operators used by the ADMM solvers.
 
-These are the TPU-native equivalents of the scalar-loop soft-threshold /
+These are the equivalents of the scalar-loop soft-threshold /
 elastic-net / box-projection kernels in the reference implementation
 (reference: src/ADMMLassoTall.h:55-69, src/ADMMEnet.h:24-40,
 src/TODO/ADMMDantzig.h:164-181).  The reference produces *sparse* vectors
 from these operators; XLA has no efficient dynamic sparsity, so we keep
-everything dense and rely on MXU/VPU throughput (see SURVEY.md section 7,
-"Hard parts").
+everything dense and rely on the accelerator's throughput (see SURVEY.md
+section 7, "Hard parts").
 
 All operators are pure functions of arrays and scalars, safe under jit,
 vmap and shard_map.

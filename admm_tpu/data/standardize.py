@@ -1,6 +1,6 @@
 """glmnet-compatible data standardization and coefficient recovery.
 
-TPU-native equivalent of the reference's ``DataStd`` class (reference:
+Equivalent of the reference's ``DataStd`` class (reference:
 src/DataStd.h:10-210).  The four modes are encoded exactly as the
 reference does — ``flag = standardize + 2*intercept``:
 
@@ -25,6 +25,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import jax.numpy as jnp
+
+from ..linalg import dot
 
 
 class StdStats(NamedTuple):
@@ -158,9 +160,9 @@ def recover(stats: StdStats, coef: jnp.ndarray, *, standardize_x: bool,
         return beta0, coef
     if flag == 2:
         coef = coef * stats.scale_y
-        beta0 = stats.mean_y - coef @ stats.mean_x
+        beta0 = stats.mean_y - dot(coef, stats.mean_x)
         return beta0, coef
     # flag == 3
     coef = coef / stats.scale_x * stats.scale_y
-    beta0 = stats.mean_y - coef @ stats.mean_x
+    beta0 = stats.mean_y - dot(coef, stats.mean_x)
     return beta0, coef

@@ -3,7 +3,7 @@
 The reference has no cross-process checkpointing; *within* a run the
 lambda-path warm-start protocol is its resume mechanism
 (reference: src/ADMMLassoTall.h:219-230, SURVEY.md section 5).  The
-TPU-native design makes the natural next step trivial: the entire solver
+design makes the natural next step trivial: the entire solver
 state is an :class:`~admm_tpu.core.engine.ADMMState` pytree of arrays, so
 a path solve can be chunked, with the terminal state of each chunk saved
 to disk, and resumed bit-exactly after a crash — the data-derived caches

@@ -3,7 +3,7 @@
 The reference's only profiling hook is a wall-clock ``#if ADMM_PROFILE``
 block in an uncompiled file (reference: src/TODO/ParBP.cppp:29-32).
 Here profiling is first-class via ``jax.profiler``: traces capture XLA
-op-level timing (and TPU hardware counters when run on device) and are
+op-level timing (and the GPU's kernel timeline when run on device) and are
 viewable in TensorBoard or Perfetto.
 
 Usage::

@@ -3,7 +3,7 @@
 The reference has residual-trace table printers wired into both engines
 but commented out of the solve loops (reference: src/ADMMBase.h:111-146
 with dead call sites at :196,204,213 — SURVEY.md section 5).  The
-TPU-native rebuild makes tracing first-class: a fixed-length ``lax.scan``
+rebuild makes tracing first-class: a fixed-length ``lax.scan``
 records (eps_primal, resid_primal, eps_dual, resid_dual, rho) for every
 iteration on device, with no host round-trips, and returns the arrays.
 

@@ -1,10 +1,10 @@
-"""Linear-algebra kernels for the TPU-native ADMM framework.
+"""Linear-algebra kernels for the ADMM framework.
 
 Replaces the reference's native compute layer — BLAS/LAPACK wrappers
 (reference: src/Linalg/BlasWrapper.h, src/Linalg/LapackWrapper.h), the
 AVX kernels (reference: src/Linalg/AVX.h) and the vendored Spectra
-eigensolver (reference: src/Spectra/) — with XLA matmuls on the MXU and
-on-device power iteration.
+eigensolver (reference: src/Spectra/) — with XLA matmuls and on-device
+power iteration.
 """
 from __future__ import annotations
 
@@ -17,9 +17,10 @@ from .power_iter import (power_iteration, spectral_radius_gram,
                          spectral_radius_sym)
 from .spd import chol_inverse, ridge_inverse
 
-# All Gram products and solve-critical matvecs run at full f32 precision on
-# the MXU.  TPU's DEFAULT matmul precision is bf16-based and would lose
-# ~3 decimal digits in X'X — unacceptable for Cholesky/inverse inputs.
+# All Gram products and solve-critical matvecs run at full f32 precision.
+# The GPU's DEFAULT f32 matmul precision may be TF32 (10-bit mantissa),
+# which loses ~3 decimal digits in X'X — unacceptable for Cholesky/inverse
+# inputs and for the Boyd residuals that decide convergence.
 dot = partial(jnp.dot, precision=lax.Precision.HIGHEST)
 
 

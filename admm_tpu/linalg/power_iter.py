@@ -4,7 +4,7 @@ The reference vendors the Spectra implicitly-restarted Lanczos solver
 (~4k LoC, reference: src/Spectra/SymEigsSolver.h) but only ever asks it
 for ONE eigenpair of X'X or XX' at 10% tolerance with a Krylov dimension
 of 3 (reference: src/ADMMLassoTall.h:196-201, src/ADMMLassoWide.h:202-207).
-That is exactly the regime where plain power iteration on the MXU wins:
+That is exactly the regime where plain power iteration wins:
 each step is one symmetric matvec, there is no re-orthogonalisation, no
 host round-trips, and the whole estimate fuses into the surrounding jitted
 program.
@@ -16,11 +16,19 @@ tighter than the 10% tolerance the reference requests.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+# Full f32 products: the estimate sets the auto-rho.  The H100 ran these
+# matvecs in full f32 even at default precision, but its default f32
+# matmul is TF32, so the precision is pinned rather than left to XLA's
+# choice of kernel.  Defined here because linalg/__init__ imports this
+# module.
+_dot = partial(jnp.dot, precision=lax.Precision.HIGHEST)
 
 
 def power_iteration(matvec: Callable[[jnp.ndarray], jnp.ndarray], dim: int,
@@ -57,15 +65,15 @@ def spectral_radius_gram(X: jnp.ndarray, *, iters: int = 50) -> jnp.ndarray:
     """
     n, p = X.shape
     if n >= p:
-        mv = lambda v: X.T @ (X @ v)
+        mv = lambda v: _dot(X.T, _dot(X, v))
         dim = p
     else:
-        mv = lambda v: X @ (X.T @ v)
+        mv = lambda v: _dot(X, _dot(X.T, v))
         dim = n
     return power_iteration(mv, dim, iters=iters, dtype=X.dtype)
 
 
 def spectral_radius_sym(S: jnp.ndarray, *, iters: int = 50) -> jnp.ndarray:
     """Largest eigenvalue of an explicit symmetric PSD matrix S."""
-    return power_iteration(lambda v: S @ v, S.shape[0], iters=iters,
+    return power_iteration(lambda v: _dot(S, v), S.shape[0], iters=iters,
                            dtype=S.dtype)

@@ -3,10 +3,10 @@
 The reference caches a Cholesky factorization and runs two triangular
 solves per ADMM iteration (reference: src/ADMMLassoTall.h:70-80 with the
 LLT at :191-205; src/ADMMBP.h:156-197; src/ADMMLAD.h:182-203).  Triangular
-solves are inherently sequential and map poorly onto the TPU's systolic
-MXU, so the TPU-native design pays a one-time ``O(k^3)`` cost to build the
-explicit inverse (or the projected operator) and turns every per-iteration
-solve into a single dense matvec — the shape the MXU is built for.
+solves are inherently sequential and parallelize poorly on an accelerator,
+so this design pays a one-time ``O(k^3)`` cost to build the explicit
+inverse (or the projected operator) and turns every per-iteration solve
+into a single dense matvec, which the matmul libraries run well.
 
 Conditioning note: every system we invert is either ridge-regularised
 (X'X + rho I) or comes from a full-rank Gram matrix with loose solver

@@ -10,10 +10,10 @@ The x-update is the affine projection onto {x : Ax = b}::
     x = v - A'(AA')^{-1} A v + A'(AA')^{-1} b,   v = adj_z - adj_y/rho
 
 (reference: src/ADMMBP.h:48-67).  The reference caches ``L^{-1}A`` from
-the Cholesky AA' = LL' and applies the projection as two BLAS gemvs; the
-TPU-native equivalent caches ``K = (AA')^{-1} A`` (one-time explicit SPD
-inverse + matmul, no triangular solves anywhere) so each iteration is two
-skinny MXU matvecs: ``x = v + AAAb - A'(K v)``.
+the Cholesky AA' = LL' and applies the projection as two BLAS gemvs;
+here the cache is ``K = (AA')^{-1} A`` (one-time explicit SPD inverse +
+matmul, no triangular solves anywhere) so each iteration is two skinny
+matvecs: ``x = v + AAAb - A'(K v)``.
 
 z-update: soft-threshold with penalty 1/rho (reference: src/ADMMBP.h:84-88).
 Accelerated FADMM engine with rho fixed (see the note at the solver
@@ -65,13 +65,6 @@ def _bp_ops(A, K, n, p, aaab_of) -> ProblemOps:
     )
 
 
-def _use_pallas_bp_batch(n: int, p: int, m: int, dtype) -> bool:
-    from ..ops._common import pallas_enabled
-    from ..ops.bp_kernel import supports_bp_batch
-
-    return pallas_enabled(dtype) and supports_bp_batch(n, p, m)
-
-
 @partial(jax.jit, static_argnames=("trace_len",))
 def _bp_fit(A, b, rho, maxit, eps_abs, eps_rel, trace_len=None):
     n, p = A.shape
@@ -81,10 +74,6 @@ def _bp_fit(A, b, rho, maxit, eps_abs, eps_rel, trace_len=None):
     Winv = chol_inverse(AAt, jitter=jitter)       # (AA')^-1
     AAAb = dot(A.T, dot(Winv, b))                 # A'(AA')^-1 b
 
-    # No Pallas path for the single-RHS solve: at one lane the
-    # projection is a gemv chain that XLA's pipeline already wins
-    # (measured 1.8x, round 1); the VMEM-resident kernel pays off in the
-    # multi-RHS batched solve below (admm_tpu/ops/bp_kernel.py).
     K = dot(Winv, A)                              # (AA')^-1 A, n x p
     ops = _bp_ops(A, K, n, p, lambda st: AAAb)
     # Fixed rho: FADMM's restart analysis (Goldstein et al. 2014) assumes
@@ -120,7 +109,7 @@ def bp_fit(A, b, *, maxit: int = 10000,
     semantics.  Requires p > n (validated by the builder API).
     ``trace_len`` records the per-iteration residual trace.
 
-    ``data_mesh`` (TPU extension — operator parallelism): A is sharded
+    ``data_mesh`` (extension — operator parallelism): A is sharded
     along its LONG (column, p) axis — the AA' build becomes per-shard
     partial outer products + an all-reduce, and the per-iteration
     projection's A'(Kv) matvecs distribute with the (p,) iterate
@@ -130,7 +119,7 @@ def bp_fit(A, b, *, maxit: int = 10000,
     if dtype is None:
         # Match the reference's float64 for this model class when the
         # backend supports it (reference: src/LAD.cpp / src/BP.cpp use
-        # double); float32 on TPU (SURVEY.md 2.6 caveat 2).
+        # double); float32 otherwise (SURVEY.md 2.6 caveat 2).
         dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     if eps_abs is None:
         eps_abs = 1e-4 if dtype == jnp.float64 else 2e-5
@@ -168,15 +157,6 @@ def _bp_fit_batch(A, B, rho, maxit, eps_abs, eps_rel):
     # (m, p) per-signal caches A'(AA')^{-1} b_i — one matmul for all.
     AAAB = dot(B, dot(Winv, A))
 
-    if _use_pallas_bp_batch(n, p, m, dtype):
-        # TPU fast path: all m lanes solve in one Pallas kernel with A
-        # and (AA')^{-1} resident in VMEM (admm_tpu/ops/bp_kernel.py).
-        from ..ops.bp_kernel import bp_batch_solve_pallas
-
-        z, niter = bp_batch_solve_pallas(A, Winv, AAAB, rho, eps_abs,
-                                         eps_rel, maxit, true_p=p)
-        return BPResult(coef=z, niter=niter)
-
     ops = _bp_ops(A, K, n, p, lambda st: st.aux)
     solve = make_batched_solver(make_fadmm_solver(ops, adapt_rho=False))
     st = _batched_cold_states(m, p, rho, jnp.zeros((m,), dtype), dtype,
@@ -195,7 +175,7 @@ def bp_fit_batch(A, B, *, maxit: int = 10000,
 
     Extension beyond the reference (which solves one b at a time): all m
     right-hand sides share the one-time ``(AA')^{-1}`` factorization and
-    solve simultaneously as MXU lanes (the batched-lane engine of the
+    solve simultaneously as batched lanes (the batched-lane engine of the
     lambda-path solvers, admm_tpu/core/engine.py::make_batched_solver) —
     the standard compressed-sensing serving workload.
 

@@ -16,7 +16,7 @@ ELIMINATION on the KKT system::
 
 with both cached inverses SPD — ``M = (X'X + rho I)^{-1}`` and the
 m x m dual Schur complement ``(C M C')^{-1}`` — so each iteration is
-two p x p MXU matvecs plus an m-dimensional correction (the one-time-
+two p x p matvecs plus an m-dimensional correction (the one-time-
 explicit-inverse pattern of the tall Lasso, reference:
 src/ADMMLassoTall.h:70-80); accelerated FADMM with fixed rho.
 

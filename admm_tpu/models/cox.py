@@ -16,9 +16,9 @@ likelihood couples every row through the risk sets, so the objective
 is not separable across row blocks — splitting it would silently
 change the model (each block would see truncated risk sets).  Use
 ``data_mesh``-style sharding of the matvecs if the data outgrows a
-chip; the risk-set cumsums stay global.
+device; the risk-set cumsums stay global.
 
-TPU-native structure: rows are sorted by time DESCENDING once on the
+Structure: rows are sorted by time DESCENDING once on the
 host, after which every risk-set quantity is a CUMSUM —
 ``S_i = sum_{t_j >= t_i} e^{eta_j}`` is a prefix sum read at each tie
 group's end, and the gradient's inner sum over events is a suffix sum
@@ -494,7 +494,7 @@ def cox_lasso_path(X, time, event, *,
     stratum labels — the STRATIFIED Cox model, one shared coefficient
     vector but separate baseline hazards: the partial likelihood is
     the sum of per-stratum Breslow terms, so risk sets never cross a
-    stratum boundary.  TPU-native realization: rows sort
+    stratum boundary.  realization: rows sort
     stratum-major/time-descending once on the host and every risk-set
     cumsum becomes SEGMENTED (two extra gathers — same compiled
     structure as the unstratified path).  One stratum reduces exactly
@@ -505,7 +505,7 @@ def cox_lasso_path(X, time, event, *,
     / counting-process model, e.g. left truncation or time-varying
     covariates as row episodes): ``time`` becomes the interval END and
     the risk set at an event time t is ``{j: start_j < t <= stop_j}``.
-    TPU-native realization: the interval membership decomposes as
+    realization: the interval membership decomposes as
     ``S(t) = sum_{stop_j >= t} - sum_{start_j >= t}`` — one extra
     prefix sum (rows permuted start-descending) plus two
     host-precomputed static gathers; ``start=None`` (all rows at risk

@@ -28,13 +28,13 @@ adaptive-rho ladder from ``ADMMBase::update_rho`` — on this doubly
 ill-conditioned linearized splitting (the operator is (X'X)^2) the ladder
 drives rho away from the 1/sqrt(sprad) balance point and convergence
 collapses (measured: 20000+ iterations and a violated constraint vs ~550
-iterations to exact constraint satisfaction with fixed rho).  The
-TPU build runs the plain engine with rho FIXED — plausibly one reason the
+iterations to exact constraint satisfaction with fixed rho).  This
+build runs the plain engine with rho FIXED — plausibly one reason the
 reference left this solver unfinished in ``src/TODO/``.
 
 The Gram matrix X'X is cached when it is smaller than X itself (n > p),
 mirroring the reference's ``use_XX`` switch but without its p <= 1000
-cap — on TPU a p x p matvec is the MXU's favourite shape.  Otherwise the
+cap — a p x p matvec is a cheap dense product here.  Otherwise the
 operator is applied matrix-free as X'(X v).
 
 Lambda-path protocol identical to the Lasso driver: internal penalty
@@ -139,7 +139,7 @@ def _solve_path_dantzig_batch(Xs, ys, ilams, rho0, maxit, eps_abs,
     """All-lambdas-at-once Dantzig solve: one while_loop whose body is
     the single-lambda engine body vmapped over lanes (the same batched
     protocol as the Lasso, see make_batched_solver).  The x-update's
-    apply_A matvec becomes a (k, p) x (p, p) MXU matmul."""
+    apply_A matvec becomes a (k, p) x (p, p) matmul."""
     n, p = Xs.shape
     dtype = Xs.dtype
     ops, rho = _dantzig_setup(Xs, ys, rho0)
@@ -208,7 +208,7 @@ def dantzig_path(X, y, *, lambdas: Optional[jnp.ndarray] = None,
     API mirrors the Lasso path (the reference's R class extends
     ADMM_Lasso unchanged, reference: R/50_admm_dantzig.R:2), including
     ``path_mode``: "scan" = sequential warm starts, "batch" = all
-    lambdas simultaneously as MXU lanes, ``trace_len`` (per-iteration
+    lambdas simultaneously as batched lanes, ``trace_len`` (per-iteration
     residual trace; implies "scan"), and ``data_mesh`` (operator
     parallelism: X/y row-sharded over the mesh so the standardization
     moments and the cached X'X / X'y builds distribute — iteration

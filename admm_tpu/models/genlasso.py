@@ -15,13 +15,13 @@ ADMM splitting with ``A = D``, ``B = -I``::
 * x-update: cached SPD solve ``(X'X + rho D'D) b = X'y - D'adj_y
   + rho D'adj_z`` — the same one-time-explicit-inverse pattern as the
   tall Lasso (reference: src/ADMMLassoTall.h:70-80), so each iteration
-  is a p x p MXU matvec plus two thin D products;
+  is a p x p matvec plus two thin D products;
 * z-update: ``soft_threshold(D b + adj_y/rho, lambda/rho)``;
 * accelerated FADMM engine with fixed rho (the factorization is
   rho-dependent, exactly the reference's reason for pinning rho,
   reference: src/ADMMLassoTall.h:96-97).
 
-The whole lambda path runs as MXU lanes (batch mode) or warm-started
+The whole lambda path runs as batched lanes (batch mode) or warm-started
 scan, sharing the engines and tracing of the Lasso path.
 
 Standardization note: ``D`` encodes structure in the ORIGINAL

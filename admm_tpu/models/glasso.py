@@ -18,10 +18,11 @@ ADMM splitting with ``A = I``, ``B = -I`` (Theta - Z = 0):
   ``G = rho z - y - S``.  The closed form is the matrix function
   ``Theta = (G + sqrt(G^2 + 4 rho I)) / (2 rho)``; the default
   computes the square root by a coupled NEWTON-SCHULZ iteration —
-  three (p, p) MXU matmuls per step, no decomposition — MEASURED 19x
-  faster per x-update than the eigendecomposition form at p=200 and
-  more accurate in f32 (benchmarks/race_glasso_prox.py; DESIGN.md
-  "glasso logdet-prox race").  ``xupdate="eigh"`` keeps the
+  three (p, p) matmuls per step, no decomposition — more accurate in
+  f32 than the eigendecomposition form; its speed-up was measured
+  before the GPU port and is not yet measured on the H100
+  (benchmarks/race_glasso_prox.py; DESIGN.md "glasso logdet-prox
+  race"; ROADMAP A5).  ``xupdate="eigh"`` keeps the
   eigendecomposition form ``Theta = Q diag(f(w)) Q'``.  There is
   nothing to factorize once and cache, which makes this the one family
   where the reference's "fixed rho protects the factorization" rule
@@ -31,12 +32,12 @@ ADMM splitting with ``A = I``, ``B = -I`` (Theta - Z = 0):
 * z-update: masked ``soft_threshold(Theta + y/rho, lambda P / rho)`` —
   exact zeros live in Z, positive-definiteness lives in Theta.
 
-The lambda path defaults to the warm-started ``lax.scan`` protocol —
-MEASURED 2.4x faster than batched lanes here on both the chip and CPU
-(chip, p=200, 20 lambdas: scan 150 ms vs batch 364 ms), the opposite of
-the regression families: each iteration is eigh-dominated (not a thin
-matvec), so lanes add FLOPs without adding arithmetic intensity, while
-warm starts cut the iteration count ~3x.  ``path_mode="batch"`` stays
+The lambda path defaults to the warm-started ``lax.scan`` protocol,
+the opposite of the regression families: each iteration is
+decomposition- or matmul-dominated (not a thin matvec), so lanes add
+FLOPs without adding arithmetic intensity, while warm starts cut the
+iteration count ~3x.  (Chosen before the GPU port; not yet measured on
+the H100, ROADMAP A5.)  ``path_mode="batch"`` stays
 available (DESIGN.md "Graphical-lasso protocol").
 
 Oracle: ``sklearn.covariance.graphical_lasso`` (coordinate-descent on
@@ -84,7 +85,7 @@ def empirical_covariance(X, weights=None, *, assume_centered=False,
         mu = dot(w, X) / sw
         Xc = X - mu[None, :]
     # HIGHEST precision: S feeds a convergence test downstream
-    # (CLAUDE.md: TPU matmuls default to bf16 accumulation otherwise).
+    # (default-precision f32 matmuls may run in TF32 otherwise).
     return dot((Xc * w[:, None]).T, Xc) / sw
 
 
@@ -93,9 +94,9 @@ def _logdet_prox_eigh(G, rho):
     ``rho Theta - Theta^{-1} = G`` via ``G = Q diag(w) Q'``."""
     w, Q = jnp.linalg.eigh(G)
     theta = (w + jnp.sqrt(w * w + 4.0 * rho)) / (2.0 * rho)
-    # HIGHEST-precision reconstruction: at default (bf16) precision
-    # the Boyd residuals floor at ~1e-2 on TPU and the solve never
-    # converges (CLAUDE.md Pallas/solve-path rule).
+    # HIGHEST-precision reconstruction: at reduced matmul precision
+    # the Boyd residuals floor at ~1e-2 and the solve never converges
+    # (the solve-path rule of linalg/__init__.py).
     xn = dot(Q * theta[None, :], Q.T)
     return 0.5 * (xn + xn.T)
 
@@ -107,12 +108,11 @@ def _logdet_prox_newton(G, rho, max_iters=60):
 
     with the square root of ``M = G^2 + 4 rho I`` (SPD, spectrum
     >= 4 rho, so the branch is unambiguous) by the coupled
-    Newton-Schulz iteration — three (p, p) matmuls per step, all on
-    the MXU, no decomposition.  MEASURED on chip (benchmarks/
-    race_glasso_prox.py, 2026-08-20): 19x faster than eigh at p=200
-    (0.062 vs 1.18 ms) and ~15x MORE accurate than f32 eigh (rel.
-    Frobenius error 2.5e-7 vs 3.9e-6 against an f64 reference); the
-    gap widens with p (p=800: 2.8 vs 20.1 ms).  Normalization by
+    Newton-Schulz iteration — three (p, p) matmuls per step, no
+    decomposition.  ~15x MORE accurate than f32 eigh (rel. Frobenius
+    error 2.5e-7 vs 3.9e-6 against an f64 reference at p=200,
+    benchmarks/race_glasso_prox.py); its speed against eigh is not yet
+    measured on the H100 (ROADMAP A5).  Normalization by
     ||M||_F keeps the iteration in its convergence region for ANY
     rho/G the adaptive ladder produces; the while_loop exits on a
     dtype-aware floor (quadratic terminal convergence makes the cap
@@ -271,8 +271,9 @@ def glasso_path(X=None, *, cov=None, weights=None,
     ``trace_len`` as in the Lasso path (tracing implies scan).
 
     ``xupdate`` picks the logdet-prox implementation: ``"newton"``
-    (default — matmul-only Newton-Schulz square root, MEASURED 19x
-    faster per iteration at p=200 and more accurate than f32 eigh) or
+    (default — matmul-only Newton-Schulz square root, more accurate
+    than f32 eigh; chosen for speed before the GPU port, not yet
+    measured on the H100) or
     ``"eigh"`` (the eigendecomposition form, kept for verification and
     for extreme ill-conditioning: the Newton form's f32 floor is
     ``u * kappa(G^2 + 4 rho I)``, see ``_logdet_prox_newton``).

@@ -22,7 +22,7 @@ families:
 
 ADMM splitting ``b - z = 0`` with f = the smooth loss and g = the
 penalty; the x-update is a fixed-step damped Newton solve (one (q, q)
-MXU Hessian build + Cholesky per step) warm-started from the previous
+Hessian build + Cholesky per step) warm-started from the previous
 iterate, the z-update a masked elastic-net prox with the intercept
 unpenalized (see models/logistic.py's module docstring for the
 engineering details this generalizes).
@@ -91,11 +91,10 @@ class GLMFamily(NamedTuple):
     # the FIXED-MAJORIZER x-update: H_fix = bound * X'WX/n >= H(b) for
     # every b, factorized ONCE per path like the gaussian tall solver's
     # ridge inverse — each inner step is then two thin matvecs instead
-    # of an (n, q, q) Hessian build + Cholesky (the measured ~10x of
-    # DESIGN.md "GLM tier").
+    # of an (n, q, q) Hessian build + Cholesky (DESIGN.md "GLM tier").
     curvature_bound: Optional[float] = None
     # Scalar family parameter (huber's M), exposed so non-closure
-    # consumers (the Pallas kernel) can rebuild the gradient.
+    # consumers (the checkpoint model tag) can tell families apart.
     param: float = 0.0
     # Inverse link mu(eta) in NUMPY (host-side, like cv_loss): feeds
     # predict(type="response")/assess mse/mae for family objects.
@@ -426,7 +425,7 @@ def recover_glm(coefs_a, mean_x, sd_x, intercept: bool):
         b0_std = jnp.zeros((coefs_a.shape[0],), dtype)
         slopes_std = coefs_a
     coef = slopes_std / sd_x[None, :]
-    beta0 = b0_std - slopes_std @ (mean_x / sd_x)
+    beta0 = b0_std - dot(slopes_std, mean_x / sd_x)
     return beta0, coef
 
 
@@ -555,17 +554,10 @@ def _null_resid_with_offset(family, y, offset, intercept, w=None):
     return -(g if w is None else w * g)
 
 
-def _use_pallas_glm(n: int, q: int, k: int, dtype) -> bool:
-    from ..ops._common import pallas_enabled
-    from ..ops.glm_kernel import supports_glm
-
-    return pallas_enabled(dtype) and supports_glm(n, q, k)
-
-
 def _glm_auto_rho(family, rho0, dtype):
     """Auto-rho = the family's curvature bound (1.0 when unbounded):
     after standardization the loss Hessian is ~ bound * I, so rho =
-    bound balances it against the prox term.  MEASURED on chip
+    bound balances it against the prox term.  Iteration-count sweep
     (DESIGN.md "GLM rho, measured"): binomial's optimum is
     rho ~ 0.2-0.3 (= its 1/4 bound, 2.7x fewer iterations than the
     old rho = 1 guess), huber's and poisson's are 1.0."""
@@ -576,7 +568,7 @@ def _glm_auto_rho(family, rho0, dtype):
 
 def _glm_fixed_minv(Xa, family, rho, obs_w=None):
     """The fixed-majorizer inverse ``(bound * Xa'W Xa/n + rho I)^{-1}``
-    (shared by the XLA engine and the Pallas kernel path)."""
+    (the fixed-majorizer x-update of _glm_ops)."""
     from ..linalg import ridge_inverse
 
     n = Xa.shape[0]
@@ -694,10 +686,9 @@ def _glm_path(X, y, nlambda, lambda_min_ratio, user_lams, rho, maxit,
     if hessian == "auto":
         # Bounded curvature -> the one-time-factorized fixed majorizer;
         # unbounded (poisson) -> the per-lambda adaptive majorizer with
-        # the curvature-ratio damping safeguard (_glm_ops) — measured
-        # 1.8x over exact per-step Newton at the 2000x200/30-lambda
-        # benchmark problem (7.4 ms vs 13.6 ms; the per-step Cholesky
-        # dominates exact's iteration cost on TPU).
+        # the curvature-ratio damping safeguard (_glm_ops), which skips
+        # exact's per-step Cholesky.  Chosen before the GPU port; not yet
+        # measured on the H100 (ROADMAP A5).
         hessian = ("fixed" if fam.curvature_bound is not None
                    else "adaptive")
     if hessian == "fixed" and fam.curvature_bound is None:
@@ -710,34 +701,11 @@ def _glm_path(X, y, nlambda, lambda_min_ratio, user_lams, rho, maxit,
         # scan-only (same restriction as cox's shipped protocol).
         path_mode = "scan"
     if path_mode == "auto":
-        # Chip-measured (DESIGN.md "GLM tier, closed"): with the fixed
-        # majorizer the batched lanes share one (q, q) matrix and win
-        # ~6x over the warm-started scan; with exact per-lane Hessians
-        # the scan wins ~2x.
+        # With the fixed majorizer the batched lanes share one (q, q)
+        # matrix; with exact per-lane Hessians the scan does less work.
+        # Tuned before the GPU port (DESIGN.md "GLM tier, closed"); not
+        # yet measured on the H100 (ROADMAP A5).
         path_mode = "batch" if hessian == "fixed" else "scan"
-
-    # TPU fast path: the whole fixed-majorizer batched path in ONE
-    # Pallas kernel with Xa, the majorizer inverse and all lane state
-    # resident in VMEM (admm_tpu/ops/glm_kernel.py).  Same math as the
-    # XLA branch below; gated on the measured VMEM budget.
-    if (path_mode == "batch" and hessian == "fixed" and w is None
-            and offset is None and pf is None and bounds is None
-            and fam.name in ("binomial", "huber")
-            and _use_pallas_glm(Xa.shape[0], q, lams.shape[0], dtype)):
-        from ..ops.glm_kernel import glm_batch_path_pallas
-
-        rho_v = _glm_auto_rho(fam, rho, dtype)
-        Minv = _glm_fixed_minv(Xa, fam, rho_v)
-        huber_m = fam.param  # huber's M; unused for binomial
-        coefs_a, niter = glm_batch_path_pallas(
-            Xa, Minv, y, pen_mask, lams, rho_v, eps_abs, eps_rel,
-            jnp.asarray(alpha, dtype), maxit, family=fam.name,
-            huber_m=huber_m, newton_steps=newton_steps, true_q=q,
-            n_total=Xa.shape[0])
-        traces = None
-        beta0, coef = recover_glm(coefs_a, mean_x, sd_x, intercept)
-        return PathResult(lambdas=lams, beta0=beta0, coef=coef,
-                          niter=niter, trace=traces)
 
     st0, solve, report, refresh = _glm_engine(
         Xa, y, fam, lams[0], rho, pen_mask, alpha, newton_steps,
@@ -786,8 +754,7 @@ def glm_lasso_path(X, y, family, *,
     argument): a fixed (n,) term added to the linear predictor —
     ``eta = b0 + X b + offset`` — for exposure/rate models (e.g.
     poisson with ``offset = log(exposure)``); the auto grid's null
-    intercept solves the offset-shifted score, and the fixed-majorizer
-    kernel falls back to XLA when an offset is given.
+    intercept solves the offset-shifted score.
     ``penalty_factor`` / ``lower_limits`` / ``upper_limits`` /
     ``exclude`` (glmnet's per-coefficient arguments, same semantics as
     :func:`admm_tpu.lasso_path`): factors rescale each coordinate's
@@ -795,9 +762,7 @@ def glm_lasso_path(X, y, family, *,
     column-rescaling equivalence tested per family); limits clip the
     prox to an original-scale box containing 0 (nonnegative logistic
     via ``lower_limits=0``); ``exclude`` forces variables out (the
-    lower=upper=0 box, pinned equal to deleting the columns).  Both
-    take the XLA engines (the Pallas kernel carries scalar lane
-    penalties).
+    lower=upper=0 box, pinned equal to deleting the columns).
     ``hessian``: "fixed" uses the
     one-time-factorized curvature majorizer in the x-update (available
     for bounded-curvature families: binomial, huber), "adaptive"
@@ -806,8 +771,9 @@ def glm_lasso_path(X, y, family, *,
     poisson; the cox protocol of models/cox.py), "exact" rebuilds the
     (q, q) Newton Hessian every inner step, "auto" (default) picks
     "fixed" when the family has a curvature bound and "adaptive"
-    otherwise — same solutions to solver tolerance, ~10x ("fixed") and
-    ~1.8x ("adaptive") faster per lambda (DESIGN.md "GLM tier").
+    otherwise — same solutions to solver tolerance, with less work per
+    lambda (DESIGN.md "GLM tier"; the speed-up is not yet measured on
+    the H100, ROADMAP A5).
     ``data_mesh`` (operator parallelism): X/y are ROW-sharded over the
     mesh so the per-step gradient/Hessian reductions (and the
     fixed-majorizer Gram build) distribute via the SPMD partitioner,

@@ -15,16 +15,14 @@ so the x-update is the orthogonal projection onto Range(X):
 (reference: src/ADMMLAD.h:62-78), and the z-update is a soft-threshold
 with penalty ``1/rho`` (reference: src/ADMMLAD.h:94-98).
 
-TPU-native choices:
+Accelerator choices:
 
 * The reference builds a dense n x n hat matrix when n <= 2000 so it can
   use one BLAS ``dsymv`` per iteration (reference: src/ADMMLAD.h:182-203).
-  Here the same trick powers the VMEM-resident Pallas kernel (one n x n
-  on-chip matvec per iteration, admm_tpu/ops/lad_kernel.py) for problems
-  that fit; larger problems use the factored projection
-  ``X ((X'X)^{-1} (X' v))`` in XLA — two skinny matvecs + one p x p
-  matvec on the MXU, with a one-time explicit inverse instead of a
-  cached Cholesky (no per-iteration triangular solves).
+  Here every size uses the factored projection ``X ((X'X)^{-1} (X' v))``
+  — two skinny matvecs + one p x p matvec, with a one-time explicit
+  inverse instead of a cached Cholesky (no per-iteration triangular
+  solves).
 * The accelerated FADMM engine runs with rho FIXED at the user value
   (default 1.0, reference: R/20_admm_lad.R:28-31).  The reference
   inherits FADMMBase::update_rho unoverridden, but combining Nesterov
@@ -49,13 +47,6 @@ from ..core.engine import (ProblemOps, make_fadmm_solver, make_state,
 from ..core.prox import l2norm, soft_threshold, sqnorm
 from ..data.standardize import recover, standardize
 from ..linalg import chol_inverse, dot, gram
-
-
-def _use_pallas_lad(n: int, q: int, dtype) -> bool:
-    from ..ops._common import pallas_enabled
-    from ..ops.lad_kernel import supports_lad
-
-    return pallas_enabled(dtype) and supports_lad(n, q)
 
 
 class LADResult(NamedTuple):
@@ -110,10 +101,9 @@ def _lad_ops(Xs, ys, Ginv, ynorm, n, p, tau=0.5) -> ProblemOps:
     )
 
 
-@partial(jax.jit, static_argnames=("intercept", "trace_len",
-                                   "pallas_ok", "tau"))
+@partial(jax.jit, static_argnames=("intercept", "trace_len", "tau"))
 def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept,
-             trace_len=None, pallas_ok=True, tau=0.5):
+             trace_len=None, tau=0.5):
     """Deliberate fix over the reference for ``intercept=True``: the
     reference mean-centers X and y and reconstructs ``beta0 = mean(y) -
     sum(coef * mean(x))`` (reference: src/LAD.cpp:34, src/DataStd.h:157),
@@ -142,41 +132,25 @@ def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept,
     Ginv = chol_inverse(XtX, jitter=jitter)
     ynorm = l2norm(ys)
 
+    ops = _lad_ops(Xa, ys, Ginv, ynorm, n, Xa.shape[1], tau=tau)
+    # Fixed rho, as for BP: FADMM acceleration + the adaptive ladder
+    # can cycle (see admm_tpu/models/bp.py); the projection is
+    # rho-free so a fixed rho = 1.0 (the reference default,
+    # R/20_admm_lad.R:28-31) converges reliably.
+    solve = make_fadmm_solver(ops, adapt_rho=False)
+
+    zeros = jnp.zeros((n,), dtype)
+    st0 = make_state(zeros, zeros, zeros, rho, 0.0, dtype=dtype)
     buf = None
-    # The VMEM hat kernel implements the symmetric (tau = 0.5) prox.
-    if (trace_len is None and pallas_ok and tau == 0.5
-            and _use_pallas_lad(n, Xa.shape[1], dtype)):
-        # TPU fast path: the whole FADMM solve in one Pallas kernel with
-        # the dense hat matrix resident in VMEM — the reference's own
-        # n <= 2000 cache (reference: src/ADMMLAD.h:182-203), built here
-        # as one (n,p)x(p,p)x(p,n) product instead of dtrsm.
-        from ..ops.lad_kernel import lad_solve_pallas
-
-        H = dot(Xa, dot(Ginv, Xa.T))
-        adj_y, adj_z, niter = lad_solve_pallas(
-            H, ys, rho, eps_abs, eps_rel, ynorm, maxit, true_n=n)
-        st_adj_y, st_adj_z, st_rho, st_it = adj_y, adj_z, rho, niter
+    if trace_len is None:
+        st = solve(st0, maxit, eps_abs, eps_rel)
     else:
-        ops = _lad_ops(Xa, ys, Ginv, ynorm, n, Xa.shape[1], tau=tau)
-        # Fixed rho, as for BP: FADMM acceleration + the adaptive ladder
-        # can cycle (see admm_tpu/models/bp.py); the projection is
-        # rho-free so a fixed rho = 1.0 (the reference default,
-        # R/20_admm_lad.R:28-31) converges reliably.
-        solve = make_fadmm_solver(ops, adapt_rho=False)
-
-        zeros = jnp.zeros((n,), dtype)
-        st0 = make_state(zeros, zeros, zeros, rho, 0.0, dtype=dtype)
-        if trace_len is None:
-            st = solve(st0, maxit, eps_abs, eps_rel)
-        else:
-            st, buf = make_traced_solve(solve, trace_len)(
-                st0, maxit, eps_abs, eps_rel)
-        st_adj_y, st_adj_z, st_rho, st_it = st.adj_y, st.adj_z, st.rho, \
-            st.it
+        st, buf = make_traced_solve(solve, trace_len)(
+            st0, maxit, eps_abs, eps_rel)
 
     # beta = (X'X)^-1 X' (y - adj_y/rho + adj_z)
     # (reference: src/ADMMLAD.h:220-225)
-    v = ys - st_adj_y / st_rho + st_adj_z
+    v = ys - st.adj_y / st.rho + st.adj_z
     coef_std = dot(Ginv, dot(Xa.T, v))
     if intercept:
         a, slopes = coef_std[0], coef_std[1:]
@@ -188,7 +162,7 @@ def _lad_fit(X, y, rho, maxit, eps_abs, eps_rel, *, intercept,
     else:
         beta0, coef = recover(stats, coef_std, standardize_x=True,
                               intercept=False)
-    return LADResult(beta0=beta0, coef=coef, niter=st_it, trace=buf)
+    return LADResult(beta0=beta0, coef=coef, niter=st.it, trace=buf)
 
 
 def lad_fit(X, y, *, intercept: bool = True, maxit: int = 10000,
@@ -199,23 +173,22 @@ def lad_fit(X, y, *, intercept: bool = True, maxit: int = 10000,
             data_mesh=None, dtype=None) -> LADResult:
     """Fit median regression by FADMM.
 
-    ``data_mesh`` (TPU extension — operator parallelism, as in
+    ``data_mesh`` (extension — operator parallelism, as in
     :func:`admm_tpu.models.lasso.lasso_path`): a ``jax.sharding.Mesh``
     over which X and y are ROW-sharded; the X'X build, the range-space
     projection's two skinny matvecs per iteration and the final
     least-squares recovery distribute via XLA's SPMD partitioner (the
     reference's implicit BLAS threading accelerates this model the same
-    way, reference: src/LAD.cpp:16 + src/Makevars:3-4).  The VMEM hat
-    kernel is bypassed (single-chip program).
+    way, reference: src/LAD.cpp:16 + src/Makevars:3-4).
 
     Defaults mirror the reference R API (reference: R/20_admm_lad.R:28-31:
     eps 1e-4, rho = 1) — under f64.  The reference runs this model in
     DOUBLE precision (reference: src/LAD.cpp:16) and its 1e-4 tolerance
-    is calibrated to f64 solution quality; on f32 backends (TPU) the
-    same nominal eps leaves ~30%% more coefficient error than the
-    reference publishes, so the f32 default tightens to 2e-5, which
-    restores it (measured sweep: DESIGN.md "f64-class accuracy") at a
-    wall cost absorbed many times over by the TPU speed margin.  Pass
+    is calibrated to f64 solution quality; in f32 the same nominal eps
+    leaves ~30%% more coefficient error than the reference publishes,
+    so the f32 default tightens to 2e-5, which restores it (accuracy
+    sweep: DESIGN.md "f64-class accuracy"; its wall cost on the GPU is
+    not yet measured, ROADMAP A5).  Pass
     eps_abs/eps_rel explicitly for literal reference semantics.
     Requires n > p (validated by the builder API).  ``trace_len``
     records the per-iteration residual trace.
@@ -223,7 +196,7 @@ def lad_fit(X, y, *, intercept: bool = True, maxit: int = 10000,
     if dtype is None:
         # Match the reference's float64 for this model class when the
         # backend supports it (reference: src/LAD.cpp / src/BP.cpp use
-        # double); float32 on TPU (SURVEY.md 2.6 caveat 2).
+        # double); float32 otherwise (SURVEY.md 2.6 caveat 2).
         dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     if eps_abs is None:
         eps_abs = 1e-4 if dtype == jnp.float64 else 2e-5
@@ -246,8 +219,7 @@ def lad_fit(X, y, *, intercept: bool = True, maxit: int = 10000,
     return _lad_fit(X, y, rho, maxit, eps_abs, eps_rel,
                     intercept=intercept,
                     trace_len=(None if trace_len is None
-                               else int(trace_len)),
-                    pallas_ok=data_mesh is None)
+                               else int(trace_len)))
 
 
 def quantile_fit(X, y, *, tau: float = 0.5, intercept: bool = True,
@@ -289,4 +261,4 @@ def quantile_fit(X, y, *, tau: float = 0.5, intercept: bool = True,
                     intercept=intercept,
                     trace_len=(None if trace_len is None
                                else int(trace_len)),
-                    pallas_ok=data_mesh is None, tau=float(tau))
+                    tau=float(tau))

@@ -15,9 +15,9 @@ Two formulations, dispatched on the data shape as in the reference
 * **tall** (n > p): accelerated FADMM on the splitting ``x - z = 0`` with
   ``f = 1/2||Xb - y||^2``; the x-update is a cached ridge solve of
   ``(X'X + rho I) x = X'y - adj_y + rho adj_z``
-  (reference: src/ADMMLassoTall.h:9-20, :70-80).  On TPU the cached
+  (reference: src/ADMMLassoTall.h:9-20, :70-80).  Here the cached
   Cholesky becomes a one-time explicit inverse so each iteration is a
-  single p x p matvec on the MXU.  rho is auto-set to
+  single p x p matvec.  rho is auto-set to
   ``eigmax(X'X)^(1/3) * lambda^(2/3)`` and deliberately kept fixed over
   the warm-started path (reference: src/ADMMLassoTall.h:96-97, :194-202).
 
@@ -28,9 +28,9 @@ Two formulations, dispatched on the data shape as in the reference
   z-update caches ``Ax`` (reference: src/ADMMLassoWide.h:156-165) and the
   adaptive-rho ladder is active.  The reference's 4^k-1 active-set
   cadence is a CPU work-saving trick (sparse column dots, reference:
-  src/ADMMLassoWide.h:86-127); on TPU a dense X' matvec per iteration is
-  one MXU gemv and needs no bookkeeping, so every update is a "regular"
-  update.  Trajectories differ slightly but converge to the same
+  src/ADMMLassoWide.h:86-127); on an accelerator a dense X' matvec per
+  iteration is one gemv and needs no bookkeeping, so every update is a
+  "regular" update.  Trajectories differ slightly but converge to the same
   solution under the same Boyd stopping rule.
 
 The whole lambda path — warm starts included — runs inside ONE jitted XLA
@@ -246,25 +246,7 @@ def _scan_path(st0, solve, report, ilams, maxit, eps_abs, eps_rel,
 
 
 def _solve_path_tall(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel, alpha,
-                     pallas_ok=True, trace_len=None, pf=None,
-                     bounds=None):
-    # TPU fast path: the whole warm-started sequential path inside ONE
-    # Pallas kernel with the ridge inverse resident in VMEM (the
-    # reference's own path protocol, latency-optimised).  Per-coordinate
-    # penalty factors take the XLA engines (the kernels carry scalar
-    # lane penalties).
-    if (trace_len is None and pallas_ok and pf is None
-            and bounds is None
-            and _use_pallas_tall(Xs.shape[1], ilams.shape[0],
-                                 Xs.dtype, mode="scan")):
-        from ..ops.tall_path import tall_path_scan_pallas
-
-        Minv, Xty, rho = _tall_setup(Xs, ys, ilams[0], rho0)
-        coefs, niter = tall_path_scan_pallas(
-            Minv, Xty, ilams, rho, eps_abs, eps_rel,
-            jnp.asarray(alpha, Xs.dtype), maxit, true_p=Xs.shape[1])
-        return coefs, niter, None
-
+                     trace_len=None, pf=None, bounds=None):
     st0, solve, report = _tall_engine(Xs, ys, ilams[0], rho0, alpha, pf,
                                       bounds)
     _, coefs, niter, traces = _scan_path(st0, solve, report, ilams, maxit,
@@ -289,31 +271,17 @@ def _batched_cold_states(k, dims, rho, ilams, dtype, aux_dim=None):
 
 
 def _solve_path_tall_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
-                           alpha, pallas_ok=True, trace_len=None,
-                           pf=None, bounds=None):
+                           alpha, trace_len=None, pf=None, bounds=None):
     """All-lambdas-at-once tall solve (see make_batched_solver).
 
     Uses a single shared rho/factorization across lambdas — exactly the
     reference's own path protocol (rho is set at the first lambda and
     never changes, reference: src/ADMMLassoTall.h:96-97, :219-230).
     ``trace_len`` records a PER-LANE residual trace (cold-start lanes;
-    make_batched_traced_solve) — the Pallas kernel is bypassed then."""
+    make_batched_traced_solve)."""
     n, p = Xs.shape
     dtype = Xs.dtype
     Minv, Xty, rho = _tall_setup(Xs, ys, ilams[0], rho0)
-
-    # TPU fast path: the whole batched path solves inside ONE Pallas
-    # kernel with the ridge inverse resident in VMEM (no HBM re-reads
-    # per iteration).  Bit-compatible with the XLA solver below.
-    if (trace_len is None and pallas_ok and pf is None
-            and bounds is None
-            and _use_pallas_tall(p, ilams.shape[0], dtype)):
-        from ..ops.tall_path import tall_path_batch_pallas
-
-        coefs, niter = tall_path_batch_pallas(
-            Minv, Xty, ilams, rho, eps_abs, eps_rel,
-            jnp.asarray(alpha, dtype), maxit, true_p=p)
-        return coefs, niter, None
 
     ops = _tall_ops(Minv, Xty, alpha, p, pf, bounds)
     engine = make_fadmm_solver(ops, adapt_rho=False)
@@ -326,22 +294,6 @@ def _solve_path_tall_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
     return st.z, st.it, buf
 
 
-def _use_pallas_tall(p: int, k: int, dtype, mode: str = "batch") -> bool:
-    from ..ops._common import pallas_enabled
-    from ..ops.tall_path import supports, supports_scan
-
-    if not pallas_enabled(dtype):
-        return False
-    return supports_scan(p, k) if mode == "scan" else supports(p, k)
-
-
-def _use_pallas_wide(n: int, p: int, k: int, dtype) -> bool:
-    from ..ops._common import pallas_enabled
-    from ..ops.wide_path import supports_wide
-
-    return pallas_enabled(dtype) and supports_wide(n, p, k)
-
-
 def _wide_setup(Xs, ys, rho_lams, rho0, alpha, enet_lambda0_scale):
     """Shared wide-regime caches: lambda0 (with the Enet inflation,
     reference: src/ADMMEnet.h:56), matrix-free spectral radius of XX'
@@ -351,8 +303,9 @@ def _wide_setup(Xs, ys, rho_lams, rho0, alpha, enet_lambda0_scale):
     per-lane for the batch path."""
     dtype = Xs.dtype
     lambda0 = jnp.max(jnp.abs(dot(Xs.T, ys)))
-    if enet_lambda0_scale:
-        lambda0 = lambda0 / (alpha + 1e-4)
+    # The all-zero threshold is the l1 part's KKT boundary, lambda0 /
+    # alpha (inf for ridge); the Enet keeps the reference's 1e-4 offset.
+    lambda0 = lambda0 / (alpha + 1e-4 if enet_lambda0_scale else alpha)
     sprad = spectral_radius_gram(Xs)
     rho = jnp.where(rho0 > 0, jnp.asarray(rho0, dtype),
                     jnp.cbrt(rho_lams / sprad))
@@ -360,29 +313,15 @@ def _wide_setup(Xs, ys, rho_lams, rho0, alpha, enet_lambda0_scale):
 
 
 def _solve_path_wide_batch(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel,
-                           alpha, enet_lambda0_scale, pallas_ok=True,
-                           trace_len=None, pf=None, lambda0_pf=None,
-                           bounds=None):
+                           alpha, enet_lambda0_scale, trace_len=None,
+                           pf=None, lambda0_pf=None, bounds=None):
     """All-lambdas-at-once wide solve; rho is per-lane (no factorization
     depends on it, so each lambda keeps its own auto-rho + ladder).
-    ``trace_len`` records a per-lane residual trace (Pallas bypassed)."""
+    ``trace_len`` records a per-lane residual trace."""
     n, p = Xs.shape
     dtype = Xs.dtype
     lambda0, sprad, rho = _wide_setup(Xs, ys, ilams, rho0, alpha,
                                       enet_lambda0_scale)
-
-    # TPU fast path: X and all lane state resident in VMEM for the whole
-    # path (the XLA solver re-reads the n x p matrix from HBM twice per
-    # iteration).  Same math as the solver below.
-    if (trace_len is None and pallas_ok and pf is None
-            and bounds is None
-            and _use_pallas_wide(n, p, ilams.shape[0], dtype)):
-        from ..ops.wide_path import wide_path_batch_pallas
-
-        coefs, niter = wide_path_batch_pallas(
-            Xs, ys, ilams, rho, sprad, lambda0, eps_abs, eps_rel,
-            jnp.asarray(alpha, dtype), maxit, true_n=n, true_p=p)
-        return coefs, niter, None
 
     if lambda0_pf is not None:
         lambda0 = lambda0_pf
@@ -471,11 +410,10 @@ def _wide_engine(Xs, ys, lam_first, rho0, alpha, enet_lambda0_scale,
 
 
 # Within the sequential (scan) protocol the gathered active-set solver
-# overtakes the dense scan once p crosses ~20k (measured on chip: 2.4x
-# at 5000x20000, 2-3x SLOWER at p <= 10k — DESIGN.md "wide-regime
+# overtakes the dense scan once p crosses ~20k (DESIGN.md "wide-regime
 # active-set question").  Scan-mode solves at or past the crossover
-# auto-dispatch to it; batch mode always wins overall and stays the
-# default.
+# auto-dispatch to it.  The crossover was tuned before the GPU port and
+# is not yet measured on the H100 (ROADMAP A5).
 _ACTIVESET_AUTO_P = 20000
 
 
@@ -483,7 +421,7 @@ def _solve_path_wide_activeset(Xs, ys, ilams, rho0, maxit, eps_abs,
                                eps_rel, alpha, enet_lambda0_scale,
                                s_max: Optional[int] = None):
     """Wide-regime scan path with the reference's 4^k-1 active-set
-    cadence, realised TPU-style.  Public entry:
+    cadence, realised as dense gathered blocks.  Public entry:
     ``lasso_path(..., path_mode="activeset")`` or any scan-mode wide
     solve at p >= _ACTIVESET_AUTO_P (auto-dispatch).
 
@@ -491,8 +429,8 @@ def _solve_path_wide_activeset(Xs, ys, ilams, rho0, maxit, eps_abs,
     FULL linearized x-update only on iterations 4^k-1; in between,
     update only the current nonzeros, each via one column inner product.
     Its CPU realisation (sparse bookkeeping + per-column AVX dots) is
-    hostile to the MXU, so here the active set is a COMPACT GATHERED
-    column block: at each regular (4^k-1) iteration the top-``s_max``
+    hostile to dense matmul hardware, so here the active set is a
+    COMPACT GATHERED column block: at each regular (4^k-1) iteration the top-``s_max``
     coordinates by |x| are gathered into a dense (n, S) matrix ``Xa``
     and the iterate is restricted to that support; the in-between
     iterations run the same linearized update against ``Xa`` — two
@@ -618,11 +556,11 @@ def _solve_path_wide(Xs, ys, ilams, rho0, maxit, eps_abs, eps_rel, alpha,
 
 @partial(jax.jit, static_argnames=("standardize_x", "intercept", "nlambda",
                                    "enet_scale", "path_mode",
-                                   "shard_data", "trace_len", "pallas_ok"))
+                                   "shard_data", "trace_len"))
 def _path_auto(X, y, nlambda, lambda_min_ratio, rho, maxit, eps_abs,
                eps_rel, alpha, weights=None, pf=None, limits=None, *,
                standardize_x, intercept, enet_scale, path_mode,
-               shard_data=False, trace_len=None, pallas_ok=True):
+               shard_data=False, trace_len=None):
     """Auto lambda grid: log-linear from lambda0 down to ratio*lambda0
     (reference: src/Lasso.cpp:78-89).  With penalty factors the grid top
     is the factor-aware KKT boundary max_j |x_j'y| / pf_j over PENALIZED
@@ -656,28 +594,28 @@ def _path_auto(X, y, nlambda, lambda_min_ratio, rho, maxit, eps_abs,
     return _path_from_lams(Xs, ys, stats, lams, rho, maxit, eps_abs,
                            eps_rel, alpha, standardize_x, intercept,
                            enet_scale, path_mode, shard_data, trace_len,
-                           pallas_ok, pf, limits)
+                           pf, limits)
 
 
 @partial(jax.jit, static_argnames=("standardize_x", "intercept",
                                    "enet_scale", "path_mode",
-                                   "shard_data", "trace_len", "pallas_ok"))
+                                   "shard_data", "trace_len"))
 def _path_user(X, y, lams, rho, maxit, eps_abs, eps_rel, alpha,
                weights=None, pf=None, limits=None, *, standardize_x,
                intercept, enet_scale, path_mode, shard_data=False,
-               trace_len=None, pallas_ok=True):
+               trace_len=None):
     Xs, ys, stats = standardize(X, y, standardize_x=standardize_x,
                                 intercept=intercept, weights=weights)
     return _path_from_lams(Xs, ys, stats, lams, rho, maxit, eps_abs,
                            eps_rel, alpha, standardize_x, intercept,
                            enet_scale, path_mode, shard_data, trace_len,
-                           pallas_ok, pf, limits)
+                           pf, limits)
 
 
 def _path_from_lams(Xs, ys, stats: StdStats, lams, rho, maxit, eps_abs,
                     eps_rel, alpha, standardize_x, intercept, enet_scale,
                     path_mode="scan", shard_data=False, trace_len=None,
-                    pallas_ok=True, pf=None, limits=None):
+                    pf=None, limits=None):
     n, p = Xs.shape
     # Coefficient box on the STANDARDIZED scale: coef_orig =
     # coef_std * scale_y / scale_x, so the original-scale limits map by
@@ -695,32 +633,24 @@ def _path_from_lams(Xs, ys, stats: StdStats, lams, rho, maxit, eps_abs,
         Xty_abs = jnp.abs(dot(Xs.T, ys))
         kkt = jnp.max(jnp.where(pf > 0,
                                 Xty_abs / jnp.maximum(pf, 1e-12), 0.0))
-        if enet_scale:
-            kkt = kkt / (alpha + 1e-4)
+        kkt = kkt / (alpha + 1e-4 if enet_scale else alpha)
         lambda0_pf = jnp.where(jnp.all(pf > 0), kkt, jnp.inf)
-    # With row-sharded data the Pallas kernels are bypassed: they are
-    # single-chip programs, and under data sharding the iteration math
-    # must stay open to XLA's SPMD partitioner (which turns the Gram /
-    # X'y / matvec reductions into psums over the mesh).  Callers that
-    # vmap the whole path (the one-program CV's fold axis, models/cv.py)
-    # also pass pallas_ok=False: the kernels are written single-program.
-    pallas_ok = pallas_ok and not shard_data
     # Internal penalty scale (reference: src/Lasso.cpp:99).
     ilams = lams * n / stats.scale_y
     if n > p:
         if path_mode == "batch":
             coefs, niter, traces = _solve_path_tall_batch(
                 Xs, ys, ilams, rho, maxit, eps_abs, eps_rel, alpha,
-                pallas_ok, trace_len, pf, bounds)
+                trace_len, pf, bounds)
         else:
             coefs, niter, traces = _solve_path_tall(
                 Xs, ys, ilams, rho, maxit, eps_abs, eps_rel, alpha,
-                pallas_ok, trace_len, pf, bounds)
+                trace_len, pf, bounds)
     else:
         if path_mode == "batch":
             coefs, niter, traces = _solve_path_wide_batch(
                 Xs, ys, ilams, rho, maxit, eps_abs, eps_rel, alpha,
-                enet_scale, pallas_ok, trace_len, pf, lambda0_pf, bounds)
+                enet_scale, trace_len, pf, lambda0_pf, bounds)
         elif (path_mode == "activeset"
               or (path_mode == "scan" and trace_len is None and pf is None
                   and bounds is None
@@ -764,21 +694,21 @@ def lasso_path(X, y, *, lambdas: Optional[jnp.ndarray] = None,
 
     ``path_mode``: "scan" (default) solves lambdas sequentially with
     warm starts, matching the reference's protocol and iteration counts;
-    "batch" solves all lambdas simultaneously as MXU lanes (see
-    make_batched_solver) — same solutions, usually much faster on TPU;
+    "batch" solves all lambdas simultaneously as batched lanes (see
+    make_batched_solver) — same solutions, usually much faster;
     "activeset" (wide regime only) is the reference's 4^k-1 active-set
     cadence as a gathered column block — the scan-protocol winner at
     very large p (DESIGN.md), to which scan-mode solves auto-dispatch
     at p >= 20000.
 
-    ``data_mesh`` (TPU extension — operator parallelism): a
+    ``data_mesh`` (extension — operator parallelism): a
     ``jax.sharding.Mesh`` over which the data matrix is sharded along
     its ROW axis.  The serial algorithm is unchanged; XLA's SPMD
     partitioner turns the data-touching reductions — standardization
     moments, the Gram ``X'X``, ``X'y``, and the wide path's per-iteration
     ``X v`` / ``X'r`` matvecs — into per-shard partial computations plus
     collectives, so an n too large for one device's memory streams
-    through the mesh.  This is the TPU equivalent of the reference's
+    through the mesh.  This is the mesh equivalent of the reference's
     implicit BLAS threading (reference: src/Makevars:3-4); the
     (p, p)-sized solve state stays replicated.  Results are identical to
     replicated execution up to reduction order.
@@ -796,8 +726,8 @@ def lasso_path(X, y, *, lambdas: Optional[jnp.ndarray] = None,
     leaves it unpenalized (always in the model); the auto grid top is
     the factor-aware KKT boundary.  Exactly equivalent to the column
     rescaling x_j -> x_j / pf_j with a uniform penalty (tested).
-    Takes the XLA engines (Pallas kernels and the active-set path carry
-    scalar lane penalties).
+    Not available on the active-set path (it carries scalar lane
+    penalties).
 
     ``lower_limits`` / ``upper_limits`` (extension — glmnet's
     ``lower.limits``/``upper.limits``): coefficient box constraints on

@@ -47,8 +47,9 @@ def logistic_lasso_path(X, y, *, lambdas: Optional[jnp.ndarray] = None,
     ``y`` must be 0/1 labels.  ``alpha`` mixes L1 and ridge as in the
     gaussian Elastic Net.  ``path_mode="auto"`` (default) resolves to
     "batch" under the default fixed-majorizer x-update (all lambda
-    lanes share ONE factorized (q, q) matrix — the chip-measured
-    fastest protocol, DESIGN.md "GLM tier, closed"); "scan" is the
+    lanes share ONE factorized (q, q) matrix — DESIGN.md "GLM tier,
+    closed"; tuned before the GPU port, not yet measured on the H100);
+    "scan" is the
     warm-started sequential path; hessian="exact" restores the
     per-step Newton Hessian build.  ``trace_len`` as in the Lasso path
     (implies scan).  Oracle-pinned against sklearn saga

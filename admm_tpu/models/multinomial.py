@@ -12,13 +12,13 @@ or the GROUPED one ``P = sum_j ||B_j.||_2`` (glmnet's
 ``type.multinomial = "grouped"``: a feature enters for all classes at
 once, as in models/multitask.py).
 
-TPU-native structure — the multinomial instance of the fixed-majorizer
+structure — the multinomial instance of the fixed-majorizer
 design (models/glm.py, DESIGN.md "GLM tier"): the softmax Hessian in
 eta satisfies ``diag(pi) - pi pi' <= 1/2 I`` in the PSD order, so the
 loss Hessian over vec(B) is dominated by ``(X'X/(2n)) (x) I_C`` —
 BLOCK-DIAGONAL across classes with ONE shared (q, q) matrix.  The
 majorize-minimize x-update is therefore a single
-``(q, q) x (q, C)`` MXU matmul per inner step against a
+``(q, q) x (q, C)`` matmul per inner step against a
 once-factorized inverse, for ANY number of classes; the whole lambda
 path runs as batched (k, q, C) lanes sharing that matrix.
 
@@ -127,7 +127,7 @@ def _mn_engine(Xa, Yoh, lam_first, rho0, pen_mask, alpha, grouped,
     across classes.  Auto-rho = 1/(4C) — the PER-CLASS curvature scale
     (pi(1-pi) at near-uniform probabilities ~ 1/C, and the binomial
     C=1 case recovers the measured 1/4 of DESIGN.md "GLM rho").
-    MEASURED on chip (2026-08-17, 2000x200 C=5, 30 lambdas): the
+    Iteration-count sweep (2000x200 C=5, 30 lambdas): the
     iteration minimum sits at rho ~ 0.05 = 1/(4*5) — 7x fewer
     iterations than the earlier rho = 1/2 guess — and at rho ~ 0.1 =
     1/(4*3) on a 400x12 C=3 problem, with sklearn-saga agreement

@@ -10,9 +10,9 @@ ROWS — a feature enters or leaves the model for ALL tasks at once
 (sklearn's ``MultiTaskLasso`` objective, the exact oracle in
 tests/test_multitask.py).
 
-TPU-native structure: the solver state is the (p, K) coefficient MATRIX
+structure: the solver state is the (p, K) coefficient MATRIX
 — every engine op is already matrix-shaped, so the tall x-update is one
-``(p, p) x (p, K)`` MXU matmul against the same cached ridge inverse the
+``(p, p) x (p, K)`` matmul against the same cached ridge inverse the
 single-response Lasso uses (reference: src/ADMMLassoTall.h:70-80), the
 row prox is a row-norm broadcast, and the batched path mode stacks
 lambdas as a leading lane axis of (k, p, K) states.  The wide regime is

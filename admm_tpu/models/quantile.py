@@ -27,7 +27,7 @@ quantile-optimal intercept is a quantile, not a mean; the same
 deliberate fix as lad_fit).  Accelerated FADMM at fixed rho.
 
 tau rides ``state.aux`` (a per-lane scalar), so a tau grid and a
-lambda grid batch together as (T x L) MXU lanes in one while_loop.
+lambda grid batch together as (T x L) batched lanes in one while_loop.
 
 Internal scale: ``ilam = n lam / scale_y`` with the penalty on the
 STANDARDIZED coefficients (the glmnet convention; with
@@ -291,7 +291,7 @@ def quantile_lasso_path(X, y, *, tau=0.5,
     """Solve l1-penalized quantile-regression paths on device.
 
     ``tau``: a scalar or a 1-D grid of quantile levels — every
-    (tau, lambda) pair is an MXU lane in ONE while_loop
+    (tau, lambda) pair is a batched lane in ONE while_loop
     (``path_mode="batch"``, default) or a warm-started per-tau scan
     (``"scan"``).  The auto lambda grid is PER TAU (each tau's exact
     null threshold tops its grid); explicit ``lambdas`` are shared.

@@ -10,7 +10,7 @@ refit on that point's support ::
 
 ``gamma = 1`` is the lasso; ``gamma = 0`` the pure refit.
 
-TPU-native structure: the refits for ALL path points run inside one
+Structure: the refits for ALL path points run inside one
 XLA program — per lambda the masked normal equations ::
 
     (M X'X M + (I - M)) b = M X'y,   M = diag(support mask)
@@ -139,13 +139,13 @@ def _relaxed_fold_etas(X, y, lams, gam, masks, fid, rho, maxit,
                          alpha, wmask, None, None,
                          standardize_x=standardize_x,
                          intercept=intercept, enet_scale=enet_scale,
-                         path_mode="batch", pallas_ok=False)
+                         path_mode="batch")
         supp = (jnp.abs(res.coef) > 0).astype(X.dtype)
         rb0, rcoef = _masked_refits(X, y, supp, wmask,
                                     standardize_x=standardize_x,
                                     intercept=intercept)
-        eta_l = res.beta0[:, None] + res.coef @ X.T        # (L, n)
-        eta_r = rb0[:, None] + rcoef @ X.T                 # (L, n)
+        eta_l = res.beta0[:, None] + dot(res.coef, X.T)    # (L, n)
+        eta_r = rb0[:, None] + dot(rcoef, X.T)             # (L, n)
         g = gam[:, None, None]
         return g * eta_l[None] + (1.0 - g) * eta_r[None]   # (G, L, n)
 

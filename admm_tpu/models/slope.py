@@ -124,11 +124,11 @@ def isotonic_nonincreasing_pava(z):
     return mean
 
 
-# Dense-minimax / parallel-PAVA crossover (chip-measured, DESIGN.md
-# "SLOPE isotonic crossover"): the (p, p) tables win below this p
-# (0.39 vs 0.42 ms at p=3072), the O(p)-memory passes win above (3.7x
-# at p=4096, 8.9x at p=8192 — and are the only option past p ~ 16k,
-# where the dense temporaries exceed HBM budgets).
+# Dense-minimax / parallel-PAVA crossover (DESIGN.md "SLOPE isotonic
+# crossover"): the (p, p) tables win below this p, the O(p)-memory
+# passes above — and are the only option past p ~ 16k, where the dense
+# temporaries exceed device memory.  Tuned before the GPU port; not yet
+# measured on the H100 (ROADMAP A5).
 _ISOTONIC_DENSE_MAX_P = 3072
 
 
@@ -312,10 +312,10 @@ def slope_path(X, y, *, lam_seq=None, q: float = 0.1,
     if path_mode not in ("auto", "batch", "scan"):
         raise ValueError("path_mode must be 'auto', 'batch' or 'scan'")
     if path_mode == "auto":
-        # Measured crossover (chip, DESIGN.md "SLOPE protocol"): the
-        # O(p^2) isotonic prox runs per LANE, so batch lanes stop
-        # amortizing once the prox dominates the matvec — batch wins
-        # 3.4x at p=50, scan wins 2-5x at p>=150.
+        # Crossover (DESIGN.md "SLOPE protocol"): the O(p^2) isotonic
+        # prox runs per LANE, so batch lanes stop amortizing once the
+        # prox dominates the matvec.  Tuned before the GPU port; not yet
+        # measured on the H100 (ROADMAP A5).
         path_mode = "batch" if p < 100 else "scan"
     if trace_len is not None:
         path_mode = "scan"

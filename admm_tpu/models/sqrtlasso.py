@@ -20,14 +20,15 @@ Two solvers, both on the shared engines:
 
   Alternate (a) a WARM-STARTED lasso solve on the cached tall engine
   at penalty ``lam * sigma`` (one ridge inverse for the whole path,
-  iterations are p x p MXU matvecs — the cached-solve pattern of
+  iterations are p x p matvecs — the cached-solve pattern of
   reference: src/ADMMLassoTall.h:70-80) with (b) the closed-form
   ``sigma = ||y - X b|| / sqrt(n)``.  The fixed point IS the
   sqrt-lasso KKT system (b solves the lasso at ``lam * sigma`` with
   sigma the residual scale — exactly the lasso-reduction oracle), and
   each outer step after the first re-enters an almost-converged
-  solver.  Measured 40x over the stacked splitting on the 10000 x 500
-  x 30-lambda row (DESIGN.md "sqrt-lasso algorithm race").
+  solver.  Chosen over the stacked splitting by a race before the GPU
+  port (DESIGN.md "sqrt-lasso algorithm race"); not yet measured on
+  the H100.
 
 * **stacked** (``algorithm="stacked"``; also the traced path) — one
   ADMM on the stacked splitting::
@@ -156,7 +157,7 @@ def _sqrt_auto_rho(ys, n, dtype):
     """Auto-rho = sqrt(n)/||ys|| = 1/sigma_hat(y): the iterate path is
     then EQUIVARIANT under y-scaling (the solution itself is — module
     docstring — so any fixed rho breaks iteration-count invariance),
-    and a 4-shape chip sweep puts the optimum at c * sqrt(n)/||ys||
+    and a 4-shape iteration-count sweep puts the optimum at c * sqrt(n)/||ys||
     with c in [0.3, 1.7] (DESIGN.md "sqrt-lasso rho"); c = 1."""
     return (jnp.sqrt(jnp.asarray(float(n), dtype))
             / jnp.maximum(l2norm(ys), 1e-30))
@@ -248,7 +249,7 @@ def _sqrt_inner_engine(Xs, ys, ilam0, rho0):
 
 def _sqrt_concomitant_batch(Xs, ys, lams, rho0, maxit, eps_abs,
                             eps_rel):
-    """All lambdas as cold-start MXU lanes, each alternating warm
+    """All lambdas as cold-start batched lanes, each alternating warm
     inner lasso solves with its own sigma update.  The outer loop runs
     until every lane's sigma is a fixed point; converged lanes freeze
     exactly as in make_batched_solver."""

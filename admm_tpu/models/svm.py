@@ -18,7 +18,7 @@ Splitting over the MARGINS, the same range-space move as the LAD solver
 
 * x-update: cached SPD solve ``(P + rho A'A) v = rho A'(z - y_d/rho)``
   with ``P = diag(1,..,1,0)`` — one-time explicit inverse, each
-  iteration two thin MXU matvecs (the tall-Lasso pattern,
+  iteration two thin matvecs (the tall-Lasso pattern,
   reference: src/ADMMLassoTall.h:70-80);
 * z-update: the separable hinge prox in closed form
   (``v >= 1 -> v``; ``v <= 1 - C/rho -> v + C/rho``; else ``1``), or
@@ -28,7 +28,7 @@ Splitting over the MARGINS, the same range-space move as the LAD solver
 
 The C axis is a BATCH axis: the cached inverse depends on rho only, so
 every C in the regularization path shares ONE factorization and solves
-as MXU lanes in a single while_loop (``svm_path``).
+as batched lanes in a single while_loop (``svm_path``).
 
 Per-observation weights ``w_i`` scale the per-row penalty ``C w_i``
 (class weighting, and the hook that makes fold-as-lane one-pass CV
@@ -195,7 +195,7 @@ def svm_path(X, y, *, Cs=None, nC: int = 20, C_min_ratio: float = 1e-3,
     ``y`` holds two classes (any labels; mapped to ±1 with the larger
     label positive, sklearn's convention).  ``loss``:
     ``"squared_hinge"`` (sklearn LinearSVC's default) or ``"hinge"``.
-    All ``Cs`` solve as MXU lanes against ONE cached factorization
+    All ``Cs`` solve as batched lanes against ONE cached factorization
     (``path_mode="batch"``); ``"scan"`` warm-starts sequentially.
     ``weights`` scale each row's misclassification penalty ``C w_i``
     (class weights; fold-as-lane CV).  The auto grid is a fixed

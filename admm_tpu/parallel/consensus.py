@@ -1,6 +1,6 @@
 """Consensus (parallel) ADMM over a device mesh.
 
-This is the TPU-native rebuild of the reference's one distributed scheme:
+This is the rebuild of the reference's one distributed scheme:
 global-variable consensus ADMM over row blocks
 (reference: src/PADMMBase.h:7-16)::
 
@@ -24,10 +24,10 @@ the synchronisation points (reference: src/PADMMBase.h:174-214,
 src/PADMMLasso.h:99-108).  Here the scheme is two-level:
 
 * W workers are laid out as ``W = D * W_local``: a leading worker axis of
-  size ``W_local`` *vectorised on each device* (the single-chip analog of
+  size ``W_local`` *vectorised on each device* (the single-device analog of
   the reference's OpenMP threads — one batched einsum instead of a
   parallel-for) and a 1-D **device mesh of size D** over which the data
-  is row-sharded with ``shard_map`` (the multi-chip scale-out the
+  is row-sharded with ``shard_map`` (the multi-device scale-out the
   reference never had);
 * each worker caches its local factorization once per cold start,
   mirroring the reference's per-worker Cholesky: direct ridge inverse for
@@ -38,7 +38,7 @@ src/PADMMLasso.h:99-108).  Here the scheme is two-level:
 * the master's three OpenMP reduce points collapse into **ONE fused
   ``psum`` per iteration** over the mesh axis: a (p+3)-packed vector
   ``[sum_local(x_i + y_i/rho), sum||x_i||^2, sum||y_i||^2, sum||r_i||^2]``
-  — riding ICI within a slice, DCN across hosts;
+  — NCCL over the cards' links within a host, the network across hosts;
 * the whole lambda path (warm starts included) is one jitted SPMD
   program: ``shard_map`` around ``lax.scan`` around ``lax.while_loop``.
 
@@ -79,7 +79,7 @@ from .mesh import make_mesh
 
 BIG = 9999.0
 
-# Batched (worker-axis) matmuls at full f32 MXU precision.
+# Batched (worker-axis) matmuls at full f32 precision.
 _bmm = partial(jnp.einsum, precision=lax.Precision.HIGHEST)
 
 
@@ -136,7 +136,7 @@ def _bp_x_update(Xi, yi, rho, *, jitter: float = 1e-6):
     (reference: src/ADMMBP.h:48-67).  The reference's dormant parallel BP
     used linearized soft-threshold worker updates with a period-10 active
     set (reference: src/TODO/PADMMBP.h:20-61); the exact projection
-    converges in far fewer iterations and is two batched MXU matvecs.
+    converges in far fewer iterations and is two batched matvecs.
 
     Zero-padded rows are exactly inert: a zero row r decouples in
     ``A A' + jitter*I`` (its only nonzero is the jitter diagonal) and
@@ -575,8 +575,8 @@ def _resolve_mesh(nworkers: Optional[int], mesh: Optional[Mesh]):
     Any mesh rank is accepted: a multi-axis mesh (e.g. a two-level
     ``(hosts, chips)`` layout) shards the worker axis over ALL its axes
     and the per-iteration psum reduces over the axis tuple — XLA lowers
-    that to the hierarchical collective (ICI within the chip axis, DCN
-    across the host axis) with no change to the math.
+    that to one collective over the axis tuple, with no change to the
+    math.
     """
     if nworkers is None and mesh is None:
         nworkers = len(jax.devices())
@@ -732,7 +732,7 @@ def parallel_lasso_path(X, y, *, nworkers: Optional[int] = None,
     ``nworkers`` defaults to the mesh size; the mesh defaults to all
     visible devices, capped at ``nworkers``.  With a single device the
     scheme degrades gracefully to the reference's shared-memory layout
-    (all workers batched on one chip).  ``alpha < 1`` solves the Elastic
+    (all workers batched on one device).  ``alpha < 1`` solves the Elastic
     Net by consensus — an extension; the reference parallelizes only the
     Lasso (reference: src/ParLasso.cpp).  ``weights`` (extension —
     glmnet's ``weights``): the standardization scales rows by sqrt(w)
@@ -955,7 +955,7 @@ def parallel_constrained_lasso_path(
                          traced=trace_len is not None)
     coefs, niter = out[0], out[1]
     traces = out[3] if trace_len is not None else None
-    beta0 = mean_y - coefs @ mean_x
+    beta0 = mean_y - dot(coefs, mean_x)
     return PathResult(lambdas=lams, beta0=beta0, coef=coefs,
                       niter=niter, trace=traces)
 

@@ -1,11 +1,11 @@
 """Device-mesh helpers for the consensus (parallel) ADMM solvers.
 
 The reference's parallelism is OpenMP fork/join over row-block workers in
-shared memory (reference: src/PADMMBase.h:180-213).  The TPU-native
+shared memory (reference: src/PADMMBase.h:180-213).  The accelerator
 equivalent is a 1-D ``jax.sharding.Mesh`` over which the data matrix is
 row-sharded; per-worker math becomes per-shard math under ``shard_map``
 and the master's gather/reduce points become ``psum`` over the mesh axis
-(riding ICI within a slice, DCN across hosts).
+(an NCCL all-reduce across the GPUs).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def put_dim_sharded(arr, mesh: Mesh, dim: int):
     mesh axes (the rest replicated) — the entry point of the serial
     drivers' ``data_mesh`` operator parallelism: XLA's SPMD partitioner
     propagates the input sharding through the Gram/projection builds and
-    the per-iteration matvecs, inserting the collectives itself (the TPU
+    the per-iteration matvecs, inserting the collectives itself (the mesh
     analog of the reference's implicit BLAS threading, reference:
     src/Makevars:3-4)."""
     axes = tuple(mesh.axis_names)

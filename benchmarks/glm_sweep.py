@@ -1,6 +1,6 @@
-"""GLM performance decision sweep (VERDICT r3 items 3 + 8).
+"""GLM performance decision sweep.
 
-Measures, on the current backend (the TPU chip in this environment), the
+Measures, on the current backend (which the output names), the
 30-lambda GLM paths at 2000 x 200 across the design matrix:
 
   * hessian: "exact" (per-step (q, q) Hessian build + Cholesky) vs

@@ -2,13 +2,14 @@
 
 Spawns the same fixed consensus Lasso solve in two configurations over 8
 virtual CPU devices — ONE process owning all 8, and TWO ``jax.distributed``
-processes owning 4 each (Gloo collectives standing in for DCN) — and
+processes owning 4 each (Gloo collectives standing in for the
+inter-host network) — and
 reports the per-solve wall time of each plus the implied cross-process
 collective overhead.  CPU emulation shares physical cores, so the
 absolute ratio is pessimistic; the row exists to show the cross-process
-path runs and to bound its overhead, not to claim TPU scaling
+path runs and to bound its overhead, not to claim accelerator scaling
 (the on-chip worker scaling lives in run_baselines.py::
-bench_consensus_scaling, measured on the real chip).
+bench_consensus_scaling).
 
 Run: python benchmarks/multiproc_collective.py
 Writes benchmarks/multiproc_collective.json.

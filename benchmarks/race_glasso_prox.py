@@ -7,7 +7,7 @@ The glasso prox has the closed matrix-function form
 so the per-iteration eigendecomposition (the measured wall dominator,
 DESIGN.md roofline: 141 iters x 1.15 ms/eigh = 64% of the p=200 path)
 can be replaced by a coupled Newton-Schulz square-root iteration --
-matmuls only, MXU-native, and batchable across lambda lanes.
+matmuls only, and batchable across lambda lanes.
 
 This race measures, at several p:
   * one eigh x-update vs one NS x-update (serial and 20-lane batched)

@@ -1,5 +1,5 @@
-"""FLOP-account the headline rows against the chip's measured matmul
-ceiling (VERDICT r4 item 6; DESIGN.md "Roofline").
+"""FLOP-account the headline rows against the device's measured matmul
+ceiling (DESIGN.md "Roofline").
 
 For the matmul-bound rows (flagship path, one-pass CV, sqrt-lasso) the
 model counts the dominant dense-linalg FLOPs from the OBSERVED
@@ -65,7 +65,7 @@ def flagship_row(out, ceiling):
 
     ms = amortized_ms(one, 2, 10, args=(Xj, yj))
     # Dominant FLOPs: gram 2np^2, ridge inverse ~2.3p^3, per-iteration
-    # Minv matvec 2p^2 (the Pallas scan kernel's one op).
+    # Minv matvec 2p^2.
     flops = 2 * n * p ** 2 + 2.3 * p ** 3 + iters * 2 * p ** 2
     out["flagship_scan_10000x1000_100lam"] = dict(
         ms=round(ms, 3), total_iters=iters, model_gflop=round(flops / 1e9, 1),
@@ -101,8 +101,7 @@ def cv_row(out, ceiling, Xj, yj):
         rf = _path_user(Xj, yj, lams, jnp.float32(-1.0), 10000, 1e-5,
                         1e-5, 1.0, masks[f], None, None,
                         standardize_x=True, intercept=True,
-                        enet_scale=False, path_mode="batch",
-                        pallas_ok=False)
+                        enet_scale=False, path_mode="batch")
         niters.append(np.asarray(rf.niter))
     niters = np.stack(niters)
 

@@ -7,11 +7,11 @@ lambda-path job: a fixed problem with W workers is spread over D devices
 visible device count.  Ideal strong scaling halves the time each time D
 doubles; efficiency(D) = T(1) / (D * T(D)).
 
-On real multi-chip TPU hardware each mesh element is a chip and the
+On real multi-GPU hardware each mesh element is a card and the
 numbers are meaningful; under the CPU emulation
 (``--xla_force_host_platform_device_count=N``) all "devices" share one
 host's cores, so emulated efficiency mostly validates that the collective
-schedule does not serialize — run on a pod slice for real numbers.
+schedule does not serialize — run on several cards for real numbers.
 
 Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python benchmarks/scaling.py [--n 16384] [--p 256] [--workers 8]

@@ -6,7 +6,7 @@ glmnet survival extensions — stratified baselines (``stratifySurv``)
 and start-stop / left-truncated data (``Surv(start, stop, event)``),
 including both at once.
 
-Run: ``python examples/cox_survival_demo.py`` (first TPU compiles take
+Run: ``python examples/cox_survival_demo.py`` (first compiles take
 a few minutes; figures land next to this file).
 """
 import os

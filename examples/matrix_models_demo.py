@@ -1,7 +1,7 @@
 """Round-4 matrix-variable families: graphical lasso, linear SVM,
 robust PCA.
 
-Run: python examples/matrix_models_demo.py   (CPU or TPU)
+Run: python examples/matrix_models_demo.py   (CPU or GPU)
 """
 import os
 import sys

@@ -2,7 +2,7 @@
 logistic regression, and weighted observations.
 
 All extensions beyond the reference's five gaussian models, running on
-whatever backend is default (TPU here).  Saves PNGs next to this file.
+whatever backend is default.  Saves PNGs next to this file.
 
 Run:  python examples/new_families_demo.py
 """

@@ -2,7 +2,7 @@
 (concomitant) square-root lasso, and the completed robust-PCA family
 (partial SVT, missing entries, lambda path, entry-holdout CV).
 
-Run: ``python examples/round5_features_demo.py`` (first TPU compiles
+Run: ``python examples/round5_features_demo.py`` (first compiles
 take a minute or two; figures land next to this file).
 """
 import os

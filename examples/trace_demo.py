@@ -5,7 +5,7 @@ commented out of the solve loops (reference: src/ADMMBase.h:111-146);
 here ``.opts(trace=True)`` records (eps_primal, resid_primal, eps_dual,
 resid_dual, rho) for every iteration of every solve ON DEVICE — the
 buffer rides the early-exiting while_loop carry, so tracing costs one
-VMEM row-write per iteration and no host round-trips — and
+device row-write per iteration and no host round-trips — and
 ``fit.format_trace(i)`` renders the reference's debug table.
 
 Run: ``python examples/trace_demo.py``

@@ -1,10 +1,10 @@
 // Native host-side runtime kernels for admm_tpu.
 //
-// TPU-native equivalent of the reference's host compute layer: the
+// Equivalent of the reference's host compute layer: the
 // hand-written AVX standardization kernels (reference:
 // src/Linalg/AVX.h:360-530 — get_ss_avx / standardize_vec_avx) and the
 // sparse coefficient-matrix packer (reference: src/Lasso.cpp:22-30,
-// write_beta_matrix).  Device-side math lives in XLA/Pallas; these
+// write_beta_matrix).  Device-side math lives in XLA; these
 // kernels serve the host data path: preparing feeds and packing results
 // without round-tripping through Python loops.
 //

@@ -275,7 +275,7 @@ def test_two_level_host_chip_mesh_matches_flat():
 
 def test_two_level_mesh_single_collective():
     """The two-axis mesh psum must still be ONE collective (a single
-    all-reduce over the full replica group — XLA owns the ICI/DCN
+    all-reduce over the full replica group — XLA owns the collective's
     hierarchy), not one per axis."""
     import jax.numpy as jnp
     from functools import partial

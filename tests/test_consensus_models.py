@@ -3,7 +3,7 @@
 The reference never shipped these: ``admm_parbp`` is dispatched by the R
 layer (reference: R/10_admm_bp.R:100-120) but its native side lives only
 in src/TODO/ (never compiled), and no ``admm_parenet`` exists at all.
-These tests pin the working TPU-native versions against the serial
+These tests pin the working versions against the serial
 solvers and independent oracles.
 """
 import numpy as np

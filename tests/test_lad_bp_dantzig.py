@@ -190,7 +190,7 @@ def test_dantzig_path_runs():
 
 
 def test_bp_batch_matches_serial():
-    """Many right-hand sides as MXU lanes == m serial solves."""
+    """Many right-hand sides as batched lanes == m serial solves."""
     from admm_tpu.models.bp import bp_fit, bp_fit_batch
 
     rng = np.random.default_rng(31)

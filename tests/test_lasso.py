@@ -305,7 +305,7 @@ def test_activeset_public_path_mode():
 def test_activeset_auto_dispatch_at_crossover(monkeypatch):
     """Scan-mode wide solves at p >= the measured crossover dispatch to
     the active-set solver (threshold lowered for the test; the real
-    value is chip-measured, DESIGN.md)."""
+    value was tuned before the GPU port, DESIGN.md)."""
     from admm_tpu.models import lasso as L
 
     rng = np.random.default_rng(4)

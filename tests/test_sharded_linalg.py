@@ -1,7 +1,7 @@
 """Operator parallelism for the SERIAL path: row-sharded data linalg.
 
 The reference gets implicit operator parallelism from BLAS threads
-(reference: src/Makevars:3-4).  The TPU equivalent is ``lasso_path(...,
+(reference: src/Makevars:3-4).  The accelerator equivalent is ``lasso_path(...,
 data_mesh=...)``: the data matrix is row-sharded over the mesh and XLA's
 SPMD partitioner turns the standardization moments, the Gram X'X, X'y
 and the wide path's per-iteration matvecs into per-shard work plus
@@ -169,7 +169,7 @@ def test_sharded_models_compile_collectives(model):
         Xg = jax.device_put(X, NamedSharding(mesh, P(axes, None)))
         yg = jax.device_put(y, NamedSharding(mesh, P(axes)))
         lowered = _lad_fit.lower(Xg, yg, 5.0, 50, 1e-4, 1e-4,
-                                 intercept=True, pallas_ok=False)
+                                 intercept=True)
     elif model == "bp":
         from admm_tpu.models.bp import _bp_fit
 

@@ -87,8 +87,8 @@ def test_builder_trace_batch_mode():
     plain = admm_tpu.admm_lasso(X, y).penalty(nlambda=5).fit()
     np.testing.assert_allclose(fit.beta.toarray(), plain.beta.toarray(),
                                atol=1e-6)
-    # Pallas is bypassed under tracing; counts can differ by the usual
-    # +-1 float-reorder margin from the untraced (possibly Pallas) run.
+    # The traced solve carries its buffer through the loop; counts can
+    # differ by the usual +-1 float-reorder margin from the untraced run.
     assert np.abs(fit.niter.astype(int)
                   - plain.niter.astype(int)).max() <= 1
     for i in range(5):
